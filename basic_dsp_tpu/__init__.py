@@ -1,13 +1,13 @@
-"""basic_dsp_tpu — a TPU-native DSP framework.
+"""basic_dsp_tpu — a JAX DSP library.
 
-A from-scratch JAX/XLA/Pallas re-design with the capabilities of the Rust
+A from-scratch JAX/XLA re-design with the capabilities of the Rust
 crate ``basic_dsp`` (see SURVEY.md for the full blueprint): typed
 real/complex vectors in time or frequency domain, elementwise math and
 statistics, windowed FFT/IFFT (incl. symmetric real-signal variants),
 centered circular FIR convolution with a blocked overlap-save fast path,
 cross-correlation, fractional and FFT resampling, analytic convolution
 kernels and windows, a multi-channel matrix layer, and mesh-sharded
-multi-chip execution with halo exchange.
+multi-device execution with halo exchange.
 """
 from .config import (DspConfig, default_config, enable_x64, make_mesh,
                      matmul_precision, set_default_config,

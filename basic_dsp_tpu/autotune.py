@@ -1,4 +1,4 @@
-"""Self-calibration — the TPU analog of the reference's one-time multicore
+"""Self-calibration — the device analog of the reference's one-time multicore
 calibration (multicore_support/threading.rs:39-193): the reference times
 sin() sweeps on first parallel use, fits thresholds with linear regression,
 and caches the result for the process lifetime; ``print_calibration``
@@ -7,16 +7,14 @@ and caches the result for the process lifetime; ``print_calibration``
 Here the tunables are the dispatch knobs of the convolution engine:
 
 * ``fft_block_len`` — block length of the blocked overlap-save pipeline;
-* ``direct_conv_max_imp_len`` — the MXU-Toeplitz <-> blocked-FFT crossover
-  kernel length;
-* ``pallas_tile_rows`` — row tile of the Pallas FIR kernel (only timed when
-  the Pallas path is enabled; interpret mode would time Python, not TPU).
+* ``direct_conv_max_imp_len`` — the Toeplitz-matmul <-> blocked-FFT
+  crossover kernel length.
 
 Calibration runs lazily on the first large convolution (the analog of
 threading.rs:190-193), takes a few seconds (compile-dominated), and
 persists per ``device_kind`` to a JSON cache so a fresh process picks the
 tuned values without re-timing (the reference re-calibrates per process;
-we improve on that since TPU compile costs are much higher).
+we improve on that since compiling for an accelerator costs much more).
 """
 from __future__ import annotations
 
@@ -101,12 +99,12 @@ def ensure_calibrated() -> dict:
 
 
 def _time_fn(f, *args, iters: int) -> float:
-    """Median-of-3 per-iteration seconds; host fetch forces completion."""
-    float(f(*args))  # compile + warm
+    """Median-of-3 per-iteration seconds."""
+    f(*args).block_until_ready()  # compile + warm
     ts = []
     for _ in range(3):
         t0 = time.perf_counter()
-        float(f(*args))
+        f(*args).block_until_ready()
         ts.append((time.perf_counter() - t0) / iters)
     return sorted(ts)[1]
 
@@ -118,7 +116,7 @@ def calibrate(n: int = 1 << 19,
     """Times the tunables on the actual device and installs + persists the
     winners.  One-time cost is a few seconds (compile-dominated) —
     mirroring the reference's 200-500 ms calibration contract
-    (threading.rs:237) scaled to TPU compile costs."""
+    (threading.rs:237) scaled to accelerator compile costs."""
     import jax
     import jax.numpy as jnp
 
@@ -155,7 +153,7 @@ def calibrate(n: int = 1 << 19,
 
     # --- knob 2: Toeplitz <-> blocked-FFT crossover kernel length --------
     # Time both paths at each kernel length; the crossover is the largest
-    # m where the MXU path still wins (the reference's SIMD gate analog,
+    # m where the matmul path still wins (the reference's SIMD gate analog,
     # convolution.rs:499: imp_len <= 202).
     crossover = 0
     xo_times = []

@@ -1,11 +1,11 @@
-"""Runtime configuration for the TPU DSP framework.
+"""Runtime configuration of the DSP library.
 
-This is the TPU-native analog of the reference's ``MultiCoreSettings``
+This is the analog of the reference's ``MultiCoreSettings``
 (multicore_support/threading.rs:199-280): where the reference carries
 per-vector thread-count thresholds and a one-time calibration, we carry the
-device mesh, block sizes for the blocked overlap-save pipeline, and the dtype
-policy.  There is no thread fan-out to configure — XLA parallelizes within a
-chip and ``jax.sharding`` across chips.
+device mesh, block sizes for the blocked overlap-save pipeline, and the
+matmul-precision dial.  There is no thread fan-out to configure — XLA
+parallelizes within a device and ``jax.sharding`` across devices.
 """
 from __future__ import annotations
 
@@ -39,99 +39,22 @@ class DspConfig:
     direct_conv_max_imp_len: int = 202
     direct_conv_min_len: int = 1_000
     fft_block_len: int = 0
-    # VMEM-resident Pallas overlap-save (kernels/overlap_save_pallas.py).
-    # None = auto: ON on TPU backends since the round-3 Mosaic-idiom
-    # rewrite (2-D Karatsuba dots, aligned concats) compiles on this
-    # runtime and beats the XLA blocked path on-chip (probe_os3.py:
-    # 0.860 vs 1.033 ms/iter at 4M/384 taps; parity 5-7e-7 across
-    # fft_len 1024..16384, probe_os3_geom.py).  Dispatch still falls
-    # back to the XLA path on any kernel compile failure (conv_ops).
-    use_pallas_overlap_save: bool = None  # None = auto (on iff TPU)
-    # Factored MXU channel IDFT in the channelizer (parallel/channelizer
-    # ._idft_rows_planar): beats the XLA batched ifft on TPU (0.72 ->
-    # 0.52-0.64 ms at 4M/1024ch) but loses on CPU meshes.
-    use_mxu_channel_dft: bool = None  # None = auto (on iff TPU)
-    # Pallas fused row-FFT + fftshift + |.| for the four-step spectrum
-    # (kernels/spectrum_pallas.py).  ON by default on TPU backends since
-    # the MXU DFT finish + 3-mult complex dots made it beat the XLA tail
-    # on-chip (probe_spectrum.log: 0.722 vs 0.861 ms at 4M, parity
-    # 3.5e-7); gated per-geometry by spectrum_pallas.supported, and
-    # non-TPU backends keep the XLA path (Mosaic targets TPU).
-    use_pallas_spectrum: bool = None  # None = auto (on iff TPU backend)
-    # VMEM-resident Pallas banded resampler (kernels/resample_pallas.py):
-    # removes the lane-misaligned circular-extension relayout and the
-    # windows materialization that cost the XLA path ~2.4x its compute
-    # floor (probe_interp4.py).  Dots run 3-pass bf16 hi/lo (~1e-6, the
-    # reference's own f32 FMA grade); falls back to the XLA banded path
-    # on any kernel compile failure.
-    use_pallas_resample: bool = None  # None = auto (on iff TPU backend)
-    # Pallas channelizer+FM-demod megakernel (kernels/channelizer_pallas
-    # .py): keeps a tile of time rows VMEM-resident through polyphase
-    # FIR -> factored channel IDFT -> conj demod, removing the per-stage
-    # HBM round-trips of the XLA pipeline (~56 B/sample).  Gated
-    # per-geometry by channelizer_pallas.supported; falls back to the
-    # XLA pipeline on any kernel compile failure.
-    use_pallas_channelizer: bool = None  # None = auto (on iff TPU)
-    # f64 accuracy contract enforcement (VERDICT r3 #8 / r4 #7;
-    # reference contract vector_types/mod.rs:121-123).
-    # "host" (DEFAULT): f64 flavors KEEP their dtype and their programs
-    # run on the host CPU backend (_planar.call routes by argument
-    # placement); true f64 results at host speed, the literal analog of
-    # the reference's "f64 computes in f64, roughly two times slower"
-    # guidance.  f32 flavors stay on the accelerator either way.  The
-    # mode is only active once ``config.enable_x64()`` has been called
-    # (without x64 the f64 dtypes do not exist and inputs canonicalize
-    # to f32 as usual).
-    # False: opt-in fast mode — f64 flavors on no-f64 backends compute
-    # at f32 grade with a one-time warning (docs/API.md accuracy
-    # grades).  True: any op that would silently degrade f64 to f32
-    # grade raises FloatingPointError instead — f64 work must run on
-    # CPU or through the *_prec device double-float reductions (which
-    # meet f64 grade anywhere).
-    strict_f64: "bool | str" = "host"
-    # Production guard (VERDICT r3 weak #6): when True, ops that would
-    # silently take a known catastrophically-slow TPU path (per-sample
-    # gather windows in interpolatef — multi-second stalls at 4M
-    # samples) raise PerformanceError instead of warn-and-proceed.
+    # Production guard: when True, ops that would silently take the
+    # per-sample gather path of interpolatef (irrational factors, see
+    # interp_ops._warn_gather_path) raise PerformanceError instead of
+    # warn-and-proceed.
     fail_on_slow_path: bool = False
-
-    def pallas_resample_enabled(self) -> bool:
-        if self.use_pallas_resample is not None:
-            return self.use_pallas_resample
-        return _is_tpu_backend()
-
-    def pallas_spectrum_enabled(self) -> bool:
-        if self.use_pallas_spectrum is not None:
-            return self.use_pallas_spectrum
-        return _is_tpu_backend()
-
-    def pallas_channelizer_enabled(self) -> bool:
-        if self.use_pallas_channelizer is not None:
-            return self.use_pallas_channelizer
-        return _is_tpu_backend()
-
-    def pallas_overlap_save_enabled(self) -> bool:
-        if self.use_pallas_overlap_save is not None:
-            return self.use_pallas_overlap_save
-        return _is_tpu_backend()
-
-
-def _is_tpu_backend() -> bool:
-    import jax
-    try:
-        return jax.devices()[0].platform == "tpu"
-    except Exception:  # backend init failure: stay conservative
-        return False
 
 
 _default_config = DspConfig()
 
-# MXU matmul precision dial.  "highest" (the default) keeps f32-exact
-# results (~2e-7 on-chip) as required by the reference's accuracy
-# contract; "high" (3-pass bf16) trades ~1e-5 accuracy for ~2x matmul
-# throughput and "default" (raw bf16, ~5e-3) is the TPU-native analog of
-# the reference's ``*_approx`` fast-math family
-# (simd_extensions/approximations.rs).  The epoch invalidates cached jit
+# Matmul precision dial.  "highest" (the default) keeps f32 matmuls in
+# f32, as the reference's accuracy contract requires; "high" and
+# "default" let XLA run f32 matmuls as TF32 on the GPU's tensor cores.
+# On an H100 (80GB HBM3, 700 W power limit) the two settings behave the
+# same on the flagship chain: max relative error 3.3e-4 instead of
+# 3.2e-7, at 0.28 instead of 0.42 ms per 4M samples (chip_smoke.py,
+# phase accuracy; PERF.md).  The epoch invalidates cached jit
 # programs (see _planar.call) so the dial takes effect immediately.
 import os as _os
 
@@ -150,7 +73,8 @@ def precision_epoch() -> int:
 
 
 def set_matmul_precision(precision: str) -> None:
-    """Sets the MXU contraction precision: "highest" | "high" | "default"."""
+    """Sets the matmul contraction precision: "highest" | "high" |
+    "default"."""
     if precision not in ("highest", "high", "default"):
         raise ValueError("precision must be 'highest', 'high' or 'default'")
     global _matmul_precision, _precision_epoch
@@ -167,70 +91,24 @@ def set_default_config(cfg: DspConfig) -> None:
     """Installs ``cfg`` as the process default.
 
     Bumps the trace-cache epoch: config fields are consulted at TRACE
-    time (strict_f64 raises, dispatch gates pick paths), so cached
-    compiled programs from a previous config must not be reused — a
-    strict_f64 flip after warm-up would otherwise silently not raise."""
+    time (dispatch gates pick paths), so cached compiled programs from a
+    previous config must not be reused."""
     global _default_config, _precision_epoch
     if cfg != _default_config:
         _precision_epoch += 1
-    if cfg.strict_f64 == "host" and _default_config.strict_f64 != "host" \
-            and not jax.config.jax_enable_x64 and _is_tpu_backend():
-        import warnings
-        warnings.warn(
-            "strict_f64='host' is inert while jax_enable_x64 is off: f64 "
-            "inputs canonicalize to f32 before routing can see them. Call "
-            "basic_dsp_tpu.config.enable_x64() to get true-f64 flavors.",
-            RuntimeWarning, stacklevel=2)
     _default_config = cfg
 
 
 def enable_x64() -> None:
     """Enable float64/complex128 flavors (the reference's ``64`` types).
 
-    On TPU f64 is emulated and slow; the reference documents a ~2x
-    f32-over-f64 speed guidance (vector_types/mod.rs:121-123).  On TPU the
-    gap is far larger, so f64 flavors are intended for CPU verification and
-    the ``*_prec`` contracts.
+    CPUs and GPUs compute f64 natively, so every op keeps the reference's
+    contract that f64 flavors compute in f64 (vector_types/mod.rs:121-123).
+    The reference's guidance that f64 is roughly two times slower than f32
+    understates the gap on a GPU, whose f64 rate is a fraction of its f32
+    rate.
     """
     jax.config.update("jax_enable_x64", True)
-    warn_if_no_native_f64()
-
-
-_f64_warned = [False]
-
-
-def warn_if_no_native_f64() -> None:
-    """Loud, one-time warning when f64 flavors run on a backend without
-    native f64 (TPU): elementwise f64 computation silently executes at f32
-    grade there — the reference's f64 contract
-    (vector_types/mod.rs:121-123: every op instantiated for f32 AND f64)
-    holds only on CPU.  The ``*_prec`` reductions are the exception: they
-    use device double-float accumulation (stats_ops) and meet the f64
-    accuracy contract on any backend.  Documented in docs/API.md."""
-    if _f64_warned[0]:
-        return
-    try:
-        platform = jax.devices()[0].platform
-    except Exception:
-        return
-    if platform == "tpu":
-        if default_config().strict_f64 == "host":
-            return  # f64 flavors route to the host CPU backend
-        if default_config().strict_f64:
-            raise FloatingPointError(
-                "strict_f64: x64 flavors requested on a TPU backend "
-                "(no native f64) — elementwise/FFT f64 would compute at "
-                "f32 grade. Run f64 work on CPU or use the *_prec "
-                "reductions; or unset DspConfig.strict_f64.")
-        _f64_warned[0] = True
-        import warnings
-        warnings.warn(
-            "x64 flavors requested on a TPU backend: TPUs have no native "
-            "f64 — elementwise/FFT f64 ops will compute at f32 grade. "
-            "Only the *_prec reductions (device double-float accumulation) "
-            "meet the f64 accuracy contract here; run f64 verification on "
-            "CPU. See docs/API.md (accuracy grades).",
-            RuntimeWarning, stacklevel=3)
 
 
 def make_mesh(n_devices: Optional[int] = None,
@@ -244,15 +122,17 @@ def make_mesh(n_devices: Optional[int] = None,
 
     * ``make_mesh(n)`` — 1-D mesh of ``n`` devices, axis ``axis_name``
       (the intra-host case; the reference's multicore analog).
-    * ``make_mesh(shape=(H, C))`` — hierarchical ``(host, chip)`` mesh:
-      H hosts x C chips/host, axes ``axis_names`` outermost-first.  On a
-      real multi-host deployment (``jax.distributed.initialize`` +
-      ``jax.devices()`` spanning processes) the outer axis crosses DCN
-      and the inner axis rides ICI; every sharded op in
-      ``basic_dsp_tpu.parallel`` places its halo/handoff collectives on
-      the inner axis and only boundary handoffs on the outer axis (see
-      parallel/collectives.py).  Sharded ops default to sharding over
-      ALL mesh axes host-major, so the same call works on either form.
+    * ``make_mesh(shape=(H, C))`` — hierarchical ``(host, device)`` mesh:
+      H hosts x C devices/host, axes ``axis_names`` outermost-first.  On
+      a multi-host deployment (``jax.distributed.initialize`` +
+      ``jax.devices()`` spanning processes) the outer axis crosses the
+      network between hosts and the inner axis stays inside one host;
+      every sharded op in ``basic_dsp_tpu.parallel`` places its
+      halo/handoff collectives on the inner axis and only boundary
+      handoffs on the outer axis (see parallel/collectives.py).  Sharded
+      ops default to sharding over ALL mesh axes host-major, so the same
+      call works on either form.  Devices of one host (for example four
+      GPUs joined by NVLink) take the 1-D form.
     """
     devices = jax.devices()
     if shape is not None:
@@ -277,8 +157,8 @@ def distributed_init(coordinator_address: Optional[str] = None,
     device op, then build the (host, chip) mesh with
     ``make_mesh(shape=(num_hosts, chips_per_host))``.
 
-    Arguments default to the standard JAX env vars / TPU metadata
-    autodetection.  Single-process (one host, or the CPU test mesh)
+    Pass all three arguments: nothing tells JAX of a cluster unless the
+    environment does.  Single-process (one host, or the CPU test mesh)
     needs no call."""
     import jax.distributed
     jax.distributed.initialize(coordinator_address=coordinator_address,

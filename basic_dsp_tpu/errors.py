@@ -4,7 +4,7 @@ Mirrors the reference error contract (basic_dsp checks_and_results.rs:3-65):
 a typed enumeration of failure reasons.  Typed vectors raise `DspError`;
 generic (`GenDspVector`) flavors instead *mark the vector as erroneous*
 (``valid_len == 0 and delta is NaN``, see vector_types/mod.rs:226-229) so the
-storage can be reused without reallocation — the TPU analog keeps the same
+storage can be reused without reallocation — this library keeps the same
 protocol at the Python level.
 """
 from __future__ import annotations
@@ -49,7 +49,7 @@ class DspError(Exception):
 class PerformanceError(RuntimeError):
     """Raised instead of a slow-path warning when
     ``DspConfig.fail_on_slow_path`` is set: the op would silently take a
-    known catastrophically-slow TPU path (e.g. per-sample gather windows
-    in ``interpolatef`` — a multi-second stall at production sizes).
+    known slow path (per-sample gather windows in ``interpolatef`` for
+    irrational factors).
     Repo-added production guard; the reference has no analog (its CPU
     paths degrade gracefully)."""

@@ -1,11 +1,12 @@
-"""Fast-math transcendental approximations — the TPU realization of the
+"""Fast-math transcendental approximations — the array realization of the
 reference's SIMD ``*_approx`` family (simd_extensions/approximations.rs,
 itself a port of the Cephes-style ``sse_mathfun`` polynomials).
 
 The reference evaluates short range-reduced polynomials in SIMD registers
-because libm calls cannot vectorize.  On TPU the analogous win is VPU
-instruction count: these evaluators compile to ~8-12 VPU ops versus the
-much longer exact lowerings, and carry the same documented contract —
+because libm calls cannot vectorize.  On an accelerator the analogous win
+is instruction count: these evaluators compile to ~8-12 elementwise ops
+versus the much longer exact lowerings, and carry the same documented
+contract —
 *faster, less accurate* (real_ops.rs:96-233: "less accurate", valid over a
 restricted range).  Accuracy is ~1e-6 relative on the reference ranges
 (matching the sse_mathfun grade), pinned by tests/test_elementary.py.

@@ -14,7 +14,7 @@ Behavioral parity notes (all against the reference):
   (time_freq/freq.rs:52-83).
 
 All transforms operate on the last axis so the matrix/channel layer can batch
-them (TPU FFTs are fastest batched).
+them (batched FFTs amortize launch and planning costs).
 """
 from __future__ import annotations
 

@@ -1,14 +1,11 @@
-"""Four-step (Bailey) factored FFT with MXU DFT stages and precomputed
-twiddles — the hand-scheduled big-FFT path for the flagship spectrum chain.
+"""Four-step (Bailey) factored FFT with matmul DFT stages and precomputed
+twiddles — the hand-scheduled big-FFT path of the flagship spectrum chain.
 
-Why not ``jnp.fft.fft`` alone?  Measured on TPU v5e at 4M complex64
-(profile_r2.log): the whole-signal XLA FFT runs at 0.68 ms while the
-batched 32k FFTs it factors into take 0.33 ms — the rest is XLA's internal
-staging.  Factoring N = n1*n2 ourselves lets us (a) run the small-n1 DFT
-stage on the MXU as a matmul, (b) PREcompute the twiddle factors (in-trace
-cos/sin of 4M angles costs ~0.2 ms of VPU time), and (c) fold the
-``fftshift`` of the spectrum chain into the constants (a roll on the k2
-axis costs ~0.25 ms; a sign flip folded into the twiddle is free).
+Factoring N = n1*n2 ourselves lets us (a) run the small-n1 DFT stage as a
+matmul that XLA can fuse with the producer of its input, (b) precompute
+the twiddle factors on the host, and (c) fold the ``fftshift`` of the
+spectrum chain into those constants.  Whether this beats one cuFFT call
+on a GPU is ROADMAP Speed 5a: chip_smoke.py times both at 4M samples.
 
 Two factorizations (both verified against ``jnp.fft.fft``):
 
@@ -18,7 +15,7 @@ Two factorizations (both verified against ``jnp.fft.fft``):
 * **DIT dual** (``dit_spectrum_mag``): A[j2, j1] = x[j1 + n1*j2] — rows
   are CONSECUTIVE samples, exactly the layout the Toeplitz convolution
   writes, so the chain fuses with no input relayout.  Stage 1 is the
-  lane-parallel axis-0 FFT, stage 2 the n1-DFT matmul with the fftshift
+  axis-0 FFT, stage 2 the n1-DFT matmul with the fftshift
   folded into a column rotation of the DFT matrix; the final transpose
   happens on f32 magnitudes (half the bytes of a complex transpose).
 
@@ -38,22 +35,14 @@ from .. import config
 
 
 def factor(n: int, n1: int = 0):
-    """Splits n = n1 * n2 with n1 the MXU-stage size (128/256 preferred).
-
-    For long signals n1 grows so that n2 stays <= 128*1024: the Pallas
-    row-FFT kernel's per-block VMEM working set scales with n2 and
-    overflows Mosaic's scoped-vmem stack beyond L2 = 1024 (measured at
-    16M samples)."""
+    """Splits n = n1 * n2 with n1 the matmul-stage size (128/256
+    preferred)."""
     if n1:
         assert n % n1 == 0
         return n1, n // n1
     for cand in (128, 256, 64):
         if n % cand == 0 and n // cand >= cand:
-            n1c = cand
-            while n // n1c > 128 * 1024 and n % (2 * n1c) == 0 \
-                    and n // (2 * n1c) >= 2 * n1c:
-                n1c *= 2
-            return n1c, n // n1c
+            return cand, n // cand
     # Fallback: closest-to-sqrt factor pair.
     best = 1
     for d in range(1, int(np.sqrt(n)) + 1):
@@ -77,32 +66,6 @@ def _dif_planes(n1: int, n2: int):
 
 
 @functools.lru_cache(maxsize=16)
-def _dif_twiddle_factored(n1: int, n2: int):
-    """The DIF big twiddle T[k1, j] = w_N^(k1 j) factored EXACTLY as an
-    outer product over the lane split j = j1*128 + j2::
-
-        T[k1, j1*128 + j2] = A[k1, j1] * B[k1, j2]
-        A[k1, j1] = w_N^(128 k1 j1);  B[k1, j2] = w_N^(k1 j2)
-
-    (products of exact exponentials — one extra f32 rounding vs the
-    dense host-f64 T).  Streaming (A, B) into the spectrum kernel costs
-    (n1*L2 + n1*128) elements instead of n1*n2 — 32 MB -> 0.4 MB of HBM
-    per 4M iteration; the kernel rebuilds T with two broadcast VPU
-    multiplies (~6 extra ops/element, 0.007 ms at the measured VPU
-    rate).  Returns (Ar, Ai, Br, Bi) numpy f32, A: (n1, n2//128),
-    B: (n1, 128)."""
-    N = n1 * n2
-    k1 = np.arange(n1)
-    L2 = n2 // 128
-    A = np.exp(-2j * np.pi * np.outer(k1, 128 * np.arange(L2)) / N)
-    B = np.exp(-2j * np.pi * np.outer(k1, np.arange(128)) / N)
-    return (np.ascontiguousarray(A.real.astype(np.float32)),
-            np.ascontiguousarray(A.imag.astype(np.float32)),
-            np.ascontiguousarray(B.real.astype(np.float32)),
-            np.ascontiguousarray(B.imag.astype(np.float32)))
-
-
-@functools.lru_cache(maxsize=16)
 def _dit_planes(n1: int, n2: int, shift: bool):
     """(F_re, F_im, T_re, T_im) for the DIT dual.
 
@@ -123,8 +86,7 @@ def _dit_planes(n1: int, n2: int, shift: bool):
 
 
 def _cmatmul(ar, ai, br, bi, precision):
-    """Complex matmul on real planes (3-multiply Karatsuba is slower on
-    MXU than 4 plain matmuls at these shapes; keep it simple)."""
+    """Complex matmul on real planes (four real matmuls)."""
     rr = jnp.matmul(ar, br, precision=precision)
     ri = jnp.matmul(ar, bi, precision=precision)
     ir = jnp.matmul(ai, br, precision=precision)
@@ -151,15 +113,15 @@ def dit_spectrum_mag(xw: jnp.ndarray, n1: int = 0,
     """|fftshift(FFT(xw))| with zero input relayout and all shifts folded.
 
     ``xw`` is the already-windowed signal.  Pipeline: view as (n2, n1)
-    rows of consecutive samples -> lane-parallel axis-0 FFT -> precomputed
-    twiddle -> MXU DFT matmul (fftshift folded into the DFT matrix) ->
-    f32 magnitude transpose.
+    rows of consecutive samples -> axis-0 FFT -> precomputed twiddle ->
+    DFT matmul (fftshift folded into the DFT matrix) -> f32 magnitude
+    transpose.
     """
     n = xw.shape[-1]
     n1, n2 = factor(n, n1)
     Fr, Fi, Tr, Ti = _dit_planes(n1, n2, shift)
     A = xw.reshape((n2, n1))
-    G = jnp.fft.fft(A, axis=0)                    # stage 1: 32k FFT per lane
+    G = jnp.fft.fft(A, axis=0)                    # stage 1: n2-point FFTs
     Hr = jnp.real(G) * Tr - jnp.imag(G) * Ti      # twiddle (precomputed)
     Hi = jnp.real(G) * Ti + jnp.imag(G) * Tr
     Er, Ei = _cmatmul(Hr, Hi, Fr, Fi, config.matmul_precision())
@@ -169,7 +131,7 @@ def dit_spectrum_mag(xw: jnp.ndarray, n1: int = 0,
 
 def dif_spectrum_mag(xw: jnp.ndarray, n1: int = 0,
                      shift: bool = True) -> jnp.ndarray:
-    """|fftshift(FFT(xw))| via the DIF split: stage-1 MXU DFT, batched
+    """|fftshift(FFT(xw))| via the DIF split: stage-1 matmul DFT, batched
     minor-axis FFT, fftshift folded into the twiddle as (-1)^j2, final
     transpose on f32 magnitudes."""
     n = xw.shape[-1]

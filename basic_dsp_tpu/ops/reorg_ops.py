@@ -65,9 +65,9 @@ def zero_interleave(x: jnp.ndarray, factor: int) -> jnp.ndarray:
     if factor <= 1:
         return x
     n = x.shape[-1]
-    # Kept as the exact scatter+reshape (NOT the MXU phase mux): the mux's
-    # one-hot matmuls leave ~3e-7 residue on TPU even at highest
-    # precision, and inserted zeros must be exactly zero.
+    # Kept as the exact scatter+reshape (NOT the phase mux): the mux's
+    # one-hot matmuls are not bit-exact wherever the matmul rounds its
+    # operands, and inserted zeros must be exactly zero.
     out = jnp.zeros(x.shape[:-1] + (n, factor), dtype=x.dtype)
     out = out.at[..., 0].set(x)
     return out.reshape(x.shape[:-1] + (n * factor,))
@@ -104,15 +104,14 @@ def phase_mux(phases: jnp.ndarray, Q: int, offs, out_len: int) -> jnp.ndarray:
 
         out[k*P + p] = phases[..., p, k*Q + offs[p]]
 
-    as ONE dense block contraction on the MXU.  The naive spellings —
+    as ONE dense block contraction.  The naive spellings —
     ``jnp.stack(..., -1).reshape`` for the interleave, strided slices or a
     ``(k, Q)``-minor one-hot einsum for the decimation — all create arrays
-    whose minor dimension is tiny (P or Q out of 128 lanes), and the
-    resulting relayouts dominate the whole resampler (~7.7 ms of a 7.6 ms
-    1M-point interpolatef; the three tap correlations cost ~1 ms).
+    whose minor dimension is tiny (P or Q), and the resulting relayouts
+    can dominate the whole resampler.
 
-    Blocking by 128 output samples per phase makes every operand a full
-    (8,128)-tiled array: reshape phases to ``(..., P, nblocks, 128*Q)``,
+    Blocking by 128 output samples per phase gives every operand a minor
+    dimension of at least 128: reshape phases to ``(..., P, nblocks, 128*Q)``,
     contract with a static one-hot ``(128*P, P, 128*Q)`` selector, and the
     flat output ``(..., nblocks*128*P)`` is a contiguous reshape.  Output
     block ``b`` element ``j`` reads phase ``j % P`` at local offset

@@ -1,4 +1,4 @@
-"""Multi-chip execution: mesh sharding, halo-exchange convolution,
+"""Multi-device execution: mesh sharding, halo-exchange convolution,
 collective statistics.
 
 This subsystem replaces the reference's multicore scheduler
@@ -6,8 +6,9 @@ This subsystem replaces the reference's multicore scheduler
 ``jax.sharding`` + ``shard_map`` over a device mesh: sample blocks become
 *shards*, the ``imp_len - 1`` overlap that the reference's overlap-save loop
 carries between blocks (convolution.rs:325-341) becomes a ``ppermute`` halo
-exchange over ICI, and the mergeable per-thread statistics partials
-(statistics.rs:211-250) become ``psum``/merge across chips.
+exchange between neighbouring devices, and the mergeable per-thread
+statistics partials (statistics.rs:211-250) become ``psum``/merge across
+devices.
 """
 from . import collectives
 from .sharded import (

@@ -1,8 +1,8 @@
 """Polyphase channelizer and FM demodulation — the 1024-channel wideband
 config (BASELINE.md config #5).
 
-The building blocks are the reference's own primitives, reassembled
-TPU-first:
+The building blocks are the reference's own primitives, reassembled as
+array programs:
 
 * ``split_into``/``merge`` round-robin polyphase decomposition
   (data_reorganization.rs:170-214) becomes a reshape;
@@ -17,24 +17,20 @@ final per-channel demod runs fully parallel with zero communication.
 from __future__ import annotations
 
 import functools
-from typing import Optional
 
 import jax
 import jax.numpy as jnp
-import numpy as np
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-
-from .. import config
+from jax.sharding import Mesh, PartitionSpec as P
 
 
 def _merged_tap_rows(prototype: jnp.ndarray, C: int) -> jnp.ndarray:
     """(t+1, C) tap matrix TS for the pure-row-stencil filterbank core.
 
     Column c carries the taps of phase (C - c) mod C (so the channelizer
-    runs in the natural (samples, phases) row layout with no lane-axis
+    runs in the natural (samples, phases) row layout with no minor-axis
     flip), and the filterbank's one-row delay line — column 0 reads the
     *current* row while columns 1.. read the *previous* row — is folded
-    into one extra tap row instead of a lane-shifted copy of the signal:
+    into one extra tap row instead of a shifted copy of the signal:
 
         TS[p, 0]    = tc[p, 0]      (p < t;  TS[t, 0] = 0)
         TS[p, c>=1] = tc[p - 1, c]  (p >= 1; TS[0, c>=1] = 0)
@@ -42,9 +38,7 @@ def _merged_tap_rows(prototype: jnp.ndarray, C: int) -> jnp.ndarray:
     where tc[r, c] = prototype[(C - c) % C + r*C].  Then
     ``u[s] = sum_p TS[p] * ext[t - p + s]`` — every term a whole-row
     offset slice of one array, which XLA fuses into a single aligned
-    stencil pass (the previous formulation's 1-lane minor-axis shift
-    forced a full relayout and dominated the pipeline: 1.5 of 1.8 ms at
-    4M/1024ch on v5e)."""
+    stencil pass with no minor-axis shift."""
     from contextlib import nullcontext
     t = prototype.shape[-1] // C
     # Constant prototypes fold at compile time (jax 0.9 stages jnp ops on
@@ -54,9 +48,8 @@ def _merged_tap_rows(prototype: jnp.ndarray, C: int) -> jnp.ndarray:
     with jax.ensure_compile_time_eval() if fold else nullcontext():
         h_rc = prototype.reshape(t, C)                # h_rc[r, p] = h[p+r*C]
         # Column permutation (C - c) % C == [0, reversed(1..C-1)]: a
-        # slice + flip (XLA Rev), NOT a gather — traced prototypes hit
-        # this on-device per call and TPU gathers are catastrophically
-        # slow (CLAUDE.md).
+        # slice + flip (XLA Rev), not a gather — traced prototypes hit
+        # this on-device per call.
         tc = jnp.concatenate([h_rc[:, :1], jnp.flip(h_rc[:, 1:], axis=1)],
                              axis=1)
         top = jnp.concatenate([tc[:1, :1],
@@ -67,98 +60,11 @@ def _merged_tap_rows(prototype: jnp.ndarray, C: int) -> jnp.ndarray:
         return jnp.concatenate([top, rest, bottom], axis=0)
 
 
-@functools.lru_cache(maxsize=4)
-def _idft_consts(C: int):
-    """Karatsuba planes for the factored unscaled inverse channel DFT
-    C = n1*128: inner IDFT-n1 (LEFT const), twiddle, outer IDFT-128
-    (RIGHT const).  All numpy (jnp constants are staged otherwise)."""
-    n1 = C // 128
-    c1 = np.arange(n1)
-    j1 = np.arange(n1)
-    W = np.exp(2j * np.pi * np.outer(c1, j1) / n1).astype(np.complex64)
-    T = np.exp(2j * np.pi * np.outer(c1, np.arange(128)) / C
-               ).astype(np.complex64)
-    F = np.exp(2j * np.pi * np.outer(np.arange(128), np.arange(128)) / 128
-               ).astype(np.complex64)
-    wl = (np.ascontiguousarray(W.real),
-          np.ascontiguousarray(W.imag + W.real),
-          np.ascontiguousarray(W.imag - W.real))
-    fr = (np.ascontiguousarray(F.real),
-          np.ascontiguousarray(F.imag - F.real),
-          np.ascontiguousarray(F.real + F.imag))
-    return wl, (np.ascontiguousarray(T.real),
-                np.ascontiguousarray(T.imag)), fr
-
-
-def _idft_rows_planar(ur, ui, C: int):
-    """Unscaled inverse DFT over the minor (channel) axis as MXU work:
-    ``y[s, c1 + n1*c2]`` returned as planar (S, n1, 128) planes indexed
-    ``[s, c1, c2]`` — the caller folds the (c1, c2) interleave into its
-    existing output transpose.
-
-    Replaces ``C * jnp.fft.ifft(u, axis=1)``, the config-#5 pipeline's
-    dominant stage (profile_chan2.log: 0.368 ms of the 0.715 ms chain at
-    4M/1024ch): inner IDFT-n1 is a tiny left-constant einsum, the outer
-    IDFT-128 is a full-tile (S*n1, 128)@(128, 128) 3-dot Karatsuba
-    matmul.  Exact vs the XLA path (golden test)."""
-    n1 = C // 128
-    S = ur.shape[0]
-    prec = config.matmul_precision()
-    wl, (tr_np, ti_np), fr = _idft_consts(C)
-    vr = ur.reshape(S, n1, 128)
-    vi = ui.reshape(S, n1, 128)
-    Wr, Wp, Wm = (jnp.asarray(p) for p in wl)
-    k1 = jnp.einsum("ab,sbl->sal", Wr, vr + vi, precision=prec)
-    k2 = jnp.einsum("ab,sbl->sal", Wm, vr, precision=prec)
-    k3 = jnp.einsum("ab,sbl->sal", Wp, vi, precision=prec)
-    br = k1 - k3
-    bi = k1 + k2
-    Tr = jnp.asarray(tr_np)[None, :, :]
-    Ti = jnp.asarray(ti_np)[None, :, :]
-    cr = br * Tr - bi * Ti
-    ci = br * Ti + bi * Tr
-    Fr, Fm, Fp = (jnp.asarray(p) for p in fr)
-    cr2 = cr.reshape(S * n1, 128)
-    ci2 = ci.reshape(S * n1, 128)
-    k1 = jnp.matmul(cr2 + ci2, Fr, precision=prec)
-    k2 = jnp.matmul(cr2, Fm, precision=prec)
-    k3 = jnp.matmul(ci2, Fp, precision=prec)
-    yr = (k1 - k3).reshape(S, n1, 128)
-    yi = (k1 + k2).reshape(S, n1, 128)
-    return yr, yi
-
-
-def _idft_eligible(C: int) -> bool:
-    """Gate for the factored MXU channel IDFT: geometry + backend.  A
-    TPU-specific trade (matmuls for the batched ifft) — on the CPU mesh
-    it measured ~1.5x SLOWER (SCALING sweep), so it follows the same
-    auto-iff-TPU rule as the Pallas kernels (config.DspConfig)."""
-    if not (C % 128 == 0 and 2 <= C // 128 <= 16):
-        return False
-    flag = getattr(config.default_config(), "use_mxu_channel_dft", None)
-    if flag is not None:
-        return bool(flag)
-    from ..config import _is_tpu_backend
-    return _is_tpu_backend()
-
-
-def _pallas_chan_eligible(C: int, S: int, taps_per_phase: int) -> bool:
-    """Gate for the fused Pallas channelizer+demod megakernel: config
-    flag (auto-iff-TPU), geometry support, and a once-per-process probe
-    compile (Mosaic failures only surface at the outer jit's compile)."""
-    if not config.default_config().pallas_channelizer_enabled():
-        return False
-    from ..kernels import channelizer_pallas as ckp
-    return ckp.supported(C, S, taps_per_phase) and ckp.runtime_ok()
-
-
 def _polyphase_fir_planes(ext: jnp.ndarray, taps_merged: jnp.ndarray,
                           s_out: int):
     """Shared filterbank FIR front-end: depthwise VALID conv over the row
-    axis, one group per phase lane, both complex planes in the batch dim
-    (the single source of truth — channelize_and_demod's MXU-IDFT path
-    and _channelize_rows both consume it).  Returns (re, im) planes of
-    shape (s_out, C)."""
+    axis, one group per phase column, both complex planes in the batch
+    dim.  Returns (re, im) planes of shape (s_out, C)."""
     return _polyphase_fir_planar(jnp.real(ext), jnp.imag(ext),
                                  taps_merged, s_out)
 
@@ -184,13 +90,12 @@ def _channelize_rows(ext: jnp.ndarray, taps_merged: jnp.ndarray,
     in-range indices, t = taps_merged.shape[0] - 1).  Output: (s_out, C)
     channel rows y[s, k].
 
-    The filterbank identity needs v_p[s] = x[s*C - p]; the lane
+    The filterbank identity needs v_p[s] = x[s*C - p]; the phase
     reversal is absorbed into the phase->channel DFT (y_k = C*ifft(u~)[k]
     with u~[c] = u_{(C-c)%C}) and the one-row delay line into the merged
     tap matrix (see :func:`_merged_tap_rows`), leaving a pure row-offset
-    stencil — no gathers, no lane shifts (both catastrophically slow on
-    TPU — CLAUDE.md).  Verified exact against the direct per-phase
-    formulation.
+    stencil — no gathers, no minor-axis shifts.  Verified exact against
+    the direct per-phase formulation.
 
     Reference anchors: split_into round-robin semantics
     (data_reorganization.rs:170-214); per-phase FIR = convolve_signal
@@ -198,26 +103,13 @@ def _channelize_rows(ext: jnp.ndarray, taps_merged: jnp.ndarray,
     """
     tp1, C = taps_merged.shape
     t = tp1 - 1
-    # Depthwise VALID conv over the row axis, one group per phase lane,
+    # Depthwise VALID conv over the row axis, one group per phase column,
     # both complex planes in the batch dim: u[s, c] = sum_p TS[p, c] *
-    # ext[s + t - p, c].  XLA's conv emitter blocks the input in VMEM and
-    # reuses it across taps — measured 0.18 ms vs 0.24 ms for the
-    # equivalent whole-row offset-slice stencil at 4M/1024ch on v5e
-    # (profile_chan.py: fir_depthwise vs fir_merged; full chain 0.49 vs
-    # 0.57 ms).  Inside one jit the real/imag split fuses with the
-    # upstream planar entry, so no relayout pass is paid.
+    # ext[s + t - p, c].  XLA's conv emitter reuses each input block
+    # across taps.
     u0, u1 = _polyphase_fir_planes(ext, taps_merged, s_out)
-    if _idft_eligible(C):
-        # Factored MXU IDFT (see _idft_rows_planar); re-interleave the
-        # (c1, c2) layout here since this generic core's contract is a
-        # flat (s, C) channel row.  channelize_and_demod skips this
-        # interleave by folding it into its final output transpose.
-        yr, yi = _idft_rows_planar(u0, u1, C)
-        yr = yr.transpose(0, 2, 1).reshape(-1, C)
-        yi = yi.transpose(0, 2, 1).reshape(-1, C)
-        return jax.lax.complex(yr, yi)
     u = jax.lax.complex(u0, u1)
-    # Channel mixing on the MINOR axis (the fast FFT layout on TPU).
+    # Channel mixing: batched inverse FFT over the minor (channel) axis.
     return C * jnp.fft.ifft(u, axis=1)
 
 
@@ -269,67 +161,21 @@ def channelize_and_demod(x: jnp.ndarray, prototype: jnp.ndarray,
     Runs entirely in (samples, channels) row layout — the FM demod's
     one-sample lookback is a row shift there — so the only transpose in
     the pipeline lands on the f32 angles (half the bytes of transposing
-    the complex baseband).
-
-    When ``C = n1*128`` the channel IDFT runs as MXU matmuls on planar
-    planes (:func:`_idft_rows_planar`) instead of the XLA batched ifft
-    (the pipeline's dominant stage, 0.368 of 0.715 ms at 4M/1024ch —
-    profile_chan2.log), the demod runs on the planes, and the factored
-    (c1, c2) interleave folds into this existing final transpose."""
-    return channelize_and_demod_planar(jnp.real(x), jnp.imag(x),
-                                       prototype, n_channels)
+    the complex baseband).  The channel IDFT is XLA's batched inverse
+    FFT (cuFFT on a GPU)."""
+    y = _channelize_rows_padded(x, prototype, n_channels)   # (S, C)
+    prev = jnp.concatenate([y[:1], y[:-1]], axis=0)
+    return jnp.angle(y * jnp.conj(prev)).T
 
 
 def channelize_and_demod_planar(xr: jnp.ndarray, xi: jnp.ndarray,
                                 prototype: jnp.ndarray,
                                 n_channels: int) -> jnp.ndarray:
     """Planar-boundary variant of :func:`channelize_and_demod` — the
-    library's program-boundary convention (complex travels as (re, im)
-    planes, ``_planar.py``).  The interleaved-complex pack/unpack that
-    the complex entry pays is NOT canceled by XLA and costs ~0.13 ms at
-    4M/1024ch (probe_chan_planar_entry: 0.335 vs 0.210 ms) — pipelines
-    holding planes (e.g. a planar DspVector's storage) should call this
-    directly."""
-    C = n_channels
-    n = xr.shape[-1]
-    if _pallas_chan_eligible(C, n // C, prototype.shape[-1] // C):
-        from ..kernels import channelizer_pallas as ckp
-        taps_merged = _merged_tap_rows(prototype, C)
-        # demod=False: the kernel returns the conj-product planes and the
-        # atan2 runs in XLA, fused into the output transpose — measured
-        # FASTER than the in-kernel polynomial atan2 (probe_chan_tile:
-        # 0.257 vs 0.272 ms at 4M/1024ch) because the extra HBM round
-        # trip costs less than the kernel's serialized VPU atan2.
-        zr, zi = ckp.channelize_demod_pallas(
-            xr, xi, taps_merged, C, demod=False)
-        ang = jnp.arctan2(zi, zr)
-        n1 = C // 128
-        S = n // C
-        # channel c = c1 + n1*c2 == flat (c2, c1): ONE f32 transpose.
-        return ang.reshape(S, n1, 128).transpose(2, 1, 0).reshape(C, S)
-    if _idft_eligible(C):
-        taps_merged = _merged_tap_rows(prototype, C)
-        t = taps_merged.shape[0] - 1
-        Xr = xr.reshape(-1, C)
-        Xi = xi.reshape(-1, C)
-        S = Xr.shape[0]
-        zpad = jnp.zeros((t, C), Xr.dtype)
-        u0, u1 = _polyphase_fir_planar(
-            jnp.concatenate([zpad, Xr], axis=0),
-            jnp.concatenate([zpad, Xi], axis=0), taps_merged, S)
-        yr, yi = _idft_rows_planar(u0, u1, C)
-        # FM demod on planes: z = y * conj(prev), one-row lookback.
-        pr = jnp.concatenate([yr[:1], yr[:-1]], axis=0)
-        pi = jnp.concatenate([yi[:1], yi[:-1]], axis=0)
-        zr = yr * pr + yi * pi
-        zi = yi * pr - yr * pi
-        ang = jnp.arctan2(zi, zr)                 # (S, c1, c2)
-        # channel c = c1 + n1*c2 == flat (c2, c1): ONE f32 transpose.
-        return ang.transpose(2, 1, 0).reshape(C, S)
-    y = _channelize_rows_padded(jax.lax.complex(xr, xi), prototype,
-                                n_channels)       # (S, C)
-    prev = jnp.concatenate([y[:1], y[:-1]], axis=0)
-    return jnp.angle(y * jnp.conj(prev)).T
+    planar-mode program boundary (complex travels as (re, im) planes,
+    ``_planar.py``)."""
+    return channelize_and_demod(jax.lax.complex(xr, xi), prototype,
+                                n_channels)
 
 
 def sharded_channelize_and_demod(x: jnp.ndarray, prototype: jnp.ndarray,
@@ -337,11 +183,12 @@ def sharded_channelize_and_demod(x: jnp.ndarray, prototype: jnp.ndarray,
                                  axis_name=None) -> jnp.ndarray:
     """Mesh-parallel channelizer + FM demod, sharded over the *sample* axis.
 
-    TPU-first layout choice: each device holds a contiguous block of input
-    samples, i.e. rows of the (samples, phases) polyphase matrix.  Then
+    Layout choice: each device holds a contiguous block of input samples,
+    i.e. rows of the (samples, phases) polyphase matrix.  Then
 
     * the per-phase causal FIR runs along the local row axis — only a
-      ``(taps_per_phase + 1)`` row halo crosses the ICI (one ppermute);
+      ``(taps_per_phase + 1)`` row halo crosses between devices (one
+      ppermute);
     * the phase→channel DFT is along the *local* phase axis — zero
       communication (vs channel-axis sharding, which would put the DFT
       across devices);
@@ -370,18 +217,13 @@ def sharded_channelize_and_demod(x: jnp.ndarray, prototype: jnp.ndarray,
     if S // d < t + 1:
         raise ValueError("shard shorter than FIR+demod halo; "
                          "use fewer devices")
-    # Kernel eligibility decided OUTSIDE the shard_map trace (the probe
-    # compile cannot run inside one); each shard then runs the fused
-    # megakernel on its local rows with the ppermute halo as the
-    # kernel's prefix input.
-    use_kernel = _pallas_chan_eligible(C, S // d, t)
-    fn = _sharded_channelizer_fn(mesh, axis_name, C, t, d, use_kernel)
+    fn = _sharded_channelizer_fn(mesh, axis_name, C, t, d)
     return fn(x, prototype)
 
 
 @functools.lru_cache(maxsize=32)
 def _sharded_channelizer_fn(mesh: Mesh, axis_name, C: int, t: int,
-                            d: int, use_kernel: bool = False):
+                            d: int):
     from . import collectives
 
     def body(xb, proto):
@@ -393,34 +235,14 @@ def _sharded_channelizer_fn(mesh: Mesh, axis_name, C: int, t: int,
         halo_n = (t + 1) * C
         halo = collectives.shift_from_left(xb[-halo_n:], axis_name,
                                            wrap=False)
-        if use_kernel:
-            from ..kernels import channelizer_pallas as ckp
-            H = ckp.HALO_ROWS
-            hr = jnp.real(halo).reshape(t + 1, C)
-            hi = jnp.imag(halo).reshape(t + 1, C)
-            # Only the last tp1 = t+1 prefix rows are touched by the
-            # kernel's tap window; pad the top with zeros.
-            pad = jnp.zeros((H - (t + 1), C), jnp.float32)
-            zr, zi = ckp.channelize_demod_pallas(
-                jnp.real(xb), jnp.imag(xb), taps_merged, C, demod=False,
-                prefix=(jnp.concatenate([pad, hr], axis=0),
-                        jnp.concatenate([pad, hi], axis=0)))
-            ang = jnp.arctan2(zi, zr)
-            n1 = C // 128
-            s_loc = xb.shape[-1] // C
-            return ang.reshape(s_loc, n1, 128).transpose(2, 1, 0) \
-                      .reshape(C, s_loc)
         ext = jnp.concatenate([halo, xb]).reshape(-1, C)
         s_out = xb.shape[-1] // C + 1        # +1 row for the demod lookback
         y = _channelize_rows(ext, taps_merged, s_out)
         dem = jnp.angle(y[1:] * jnp.conj(y[:-1]))
         return dem.T                          # (C, S_local)
 
-    # check_vma=False: the Pallas kernel path's out_shape carries no vma
-    # annotation (same rule as sharded_fft/mimo shard_map bodies).
     return jax.jit(jax.shard_map(
         body, mesh=mesh,
         in_specs=(P(axis_name), P()),
         out_specs=P(None, axis_name),
-        check_vma=False,
     ))

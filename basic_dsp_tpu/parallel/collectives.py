@@ -1,30 +1,32 @@
 """Hierarchical (multi-host-shaped) collective helpers.
 
-The distributed layer scales 1 chip -> 1 host -> N hosts (BASELINE.md).
-A multi-host TPU deployment is a 2-D ``(host, chip)`` mesh: the ``chip``
-axis rides ICI (fast, intra-host), the ``host`` axis rides DCN (slow,
-inter-host).  Every sharded op in this package therefore addresses the
+The distributed layer scales 1 device -> 1 host -> N hosts.  A multi-host
+deployment is a 2-D ``(host, chip)`` mesh: the ``chip`` axis stays inside
+a host (fast links, e.g. NVLink between the GPUs of one machine), the
+``host`` axis crosses the network between hosts (slow).  Four GPUs of one
+machine are a 1-D mesh.  Every sharded op in this package therefore
+addresses the
 mesh through these helpers, which accept EITHER a single axis name (the
 1-D intra-host mesh, the reference's multicore analog —
 threading.rs:293-765) or a tuple of axis names ordered outermost-first
 (``("host", "chip")``): the time/channel axis shards over the flattened
 host-major device order.
 
-Comm placement (the design rule VERDICT r3 #4 asks for):
+Comm placement:
 
 * ``shift_from_left/right`` (halo exchange for overlap-save, resampling,
   channelizer lookback) decomposes the flattened-ring neighbor shift
-  hierarchically: every device ppermutes along the INNERMOST (chip/ICI)
+  hierarchically: every device ppermutes along the INNERMOST (intra-host)
   axis; only devices on a host boundary (chip index 0 or C-1, i.e. 1/C
-  of them) additionally forward their halo along the host/DCN axis.
-  DCN traffic per step = halo_bytes * n_hosts, independent of the
-  per-host chip count — the halo handoff is the only inter-host data.
+  of them) additionally forward their halo along the host axis.
+  Inter-host traffic per step = halo_bytes * n_hosts, independent of the
+  per-host device count — the halo handoff is the only inter-host data.
 * ``psum``/``pmin``/``pmax`` take tuples natively in jax; XLA lowers
-  them hierarchically (reduce over ICI first, then DCN) on real
+  them hierarchically (reduce inside hosts first, then across hosts) on
   multi-host topologies.
 * ``all_to_all`` over the tuple (used by the distributed four-step FFT)
   is the one op whose traffic is inherently all-pairs; callers document
-  their DCN volume separately (see sharded_fft).
+  their inter-host volume separately (see sharded_fft).
 """
 from __future__ import annotations
 
@@ -98,8 +100,8 @@ def shift_from_left(val, axes: AxisNames, wrap: bool = True):
     """Each device receives ``val`` from its LEFT neighbor in the
     flattened host-major ring (inside shard_map).
 
-    Hierarchical: one ppermute along the innermost (ICI) axis moves
-    every shard; a recursive outer-axis (DCN) ppermute then corrects
+    Hierarchical: one ppermute along the innermost (intra-host) axis
+    moves every shard; a recursive outer-axis ppermute then corrects
     the devices that sit on an outer-axis boundary — only the halo
     crosses hosts.  ``wrap=False`` feeds zeros into the global first
     device (ppermute's missing-source convention), the causal-padding

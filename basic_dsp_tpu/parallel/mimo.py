@@ -6,8 +6,8 @@ responses, evaluated in the frequency domain.  Distributed form: the
 channel axis shards over the mesh, every device FFTs its local input
 rows, contracts them against ITS column block of the kernel grid, and one
 ``psum_scatter`` both reduces the partial channel mixes and leaves each
-device exactly its block of output channels — a single reduce-scatter
-rides the ICI, no all_gather of the (C, n) spectrum ever materializes.
+device exactly its block of output channels — a single reduce-scatter,
+no all_gather of the (C, n) spectrum ever materializes.
 
 Comm volume: psum_scatter moves (d-1)/d of C*n complex samples per
 device — the same traffic as one all_to_all, half an
@@ -39,8 +39,8 @@ def sharded_convolve_mat(x: jnp.ndarray, imp: np.ndarray, mesh: Mesh,
     ``imp``: (C, C, taps) kernel grid (out_channel, in_channel, tap).
     Requires ``C % mesh_size == 0``.  Returns the (C, n) output sharded
     over channels.  On a hierarchical (host, chip) mesh the
-    ``psum_scatter`` lowers to an ICI reduce-scatter per host plus one
-    DCN cross-host reduce of the (C/d, n) partials.
+    ``psum_scatter`` lowers to a reduce-scatter inside each host plus
+    one cross-host reduce of the (C/d, n) partials.
     """
     from . import collectives
     axis_name = collectives.resolve_axes(mesh, axis_name)
@@ -53,8 +53,7 @@ def sharded_convolve_mat(x: jnp.ndarray, imp: np.ndarray, mesh: Mesh,
     if imp.ndim != 3 or imp.shape[0] != C or imp.shape[1] != C:
         raise ValueError("impulse_response must be (C, C, taps)")
 
-    from .. import _planar
-    cdtype = _planar.complex_dtype_for(x.dtype)
+    cdtype = jnp.result_type(x.dtype, jnp.complex64)
     # Kernel spectra: small (taps -> n roll/pad) and static per call site —
     # built once globally, sharded over the INPUT-channel axis r so each
     # device holds G[:, r_local, :].

@@ -11,9 +11,10 @@ scalar convolution, convolution.rs:374-398; here the ring does it).
 Multi-host: every entry point also accepts a hierarchical
 ``(host, chip)`` mesh (``config.make_mesh(shape=(H, C))``) — the signal
 shards over the flattened host-major device order and the halo exchange
-runs hierarchically (ICI ppermute everywhere + a DCN handoff only at
-host boundaries; see parallel/collectives.py).  DCN traffic per call =
-halo_bytes * n_hosts, independent of chips/host.
+runs hierarchically (intra-host ppermute everywhere + a cross-host
+handoff only at host boundaries; see parallel/collectives.py).
+Inter-host traffic per call = halo_bytes * n_hosts, independent of
+devices per host.
 """
 from __future__ import annotations
 
@@ -45,8 +46,8 @@ def _local_overlap_save(x_local, h_eff, m_eff, c, fft_len, axis_name):
 
     ``x_local``: (ln,) shard.  Outputs the (ln,) shard of the global
     circular centered convolution.  ``axis_name`` may be a tuple
-    (hierarchical mesh): the ring shift then runs ICI-first with a DCN
-    handoff only at host boundaries (collectives.shift_from_*).
+    (hierarchical mesh): the ring shift then runs intra-host first with a
+    cross-host handoff only at host boundaries (collectives.shift_from_*).
     """
     halo_l = m_eff - c     # samples needed before each output
     halo_r = c - 1         # samples needed after each output
@@ -62,7 +63,7 @@ def _local_overlap_save(x_local, h_eff, m_eff, c, fft_len, axis_name):
 
     ln = x_local.shape[-1]
     # Local outputs are the linear convolution of the halo-extended shard,
-    # offset by m_eff - 1.  Short kernels ride the MXU Toeplitz path
+    # offset by m_eff - 1.  Short kernels ride the Toeplitz matmul path
     # (zero-pad makes the circular evaluation linear); long kernels use the
     # gather-free overlap-add batched-FFT pipeline.
     if m_eff <= 202:
@@ -82,7 +83,7 @@ def sharded_convolve_signal(x: jnp.ndarray, h: jnp.ndarray, mesh: Mesh,
     Semantics identical to ``ops.conv_ops.convolve_signal_fft`` (and hence
     the reference's ``convolve_signal``); execution is fully sharded —
     per-shard batched FFTs plus one neighbor halo shift (hierarchical on
-    2-D (host, chip) meshes: ICI ppermute + host-boundary DCN handoff).
+    2-D (host, chip) meshes: intra-host ppermute + host-boundary handoff).
 
     Requires ``len(x) % mesh.size == 0`` and a local shard at least as long
     as the (clipped) kernel.
@@ -100,8 +101,7 @@ def sharded_convolve_signal(x: jnp.ndarray, h: jnp.ndarray, mesh: Mesh,
     if n // d < m_eff:
         raise ValueError("shard shorter than kernel; use fewer devices")
     fft_len = conv_ops.pick_fft_len(m_eff, fft_len)
-    from .. import _planar
-    cdtype = _planar.complex_dtype_for(x.dtype, h.dtype)
+    cdtype = jnp.result_type(x.dtype, h.dtype, jnp.complex64)
     h_eff = h[..., start:start + length].astype(cdtype)
 
     fn = _sharded_conv_fn(mesh, axis_name, m_eff, c, fft_len,
@@ -218,7 +218,7 @@ def _sharded_interp_fn(mesh: Mesh, axis_name, poly_p: int, poly_q: int,
 
 def sharded_sum(x: jnp.ndarray, mesh: Mesh, axis_name=None):
     """psum-reduced sum over a time-sharded signal (hierarchical meshes:
-    XLA reduces over ICI first, then DCN)."""
+    XLA reduces inside hosts first, then across hosts)."""
     axis_name = collectives.resolve_axes(mesh, axis_name)
     fn = jax.shard_map(
         lambda xs: jax.lax.psum(jnp.sum(xs, axis=-1), axis_name),

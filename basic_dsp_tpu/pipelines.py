@@ -11,21 +11,15 @@ from .ops import conv_ops, fft_ops, fourstep
 
 
 def _shifted_mag(windowed: jnp.ndarray) -> jnp.ndarray:
-    """|fftshift(FFT(windowed))| — four-step MXU path for factorable 1-D
-    lengths, whole-signal XLA FFT otherwise.
+    """|fftshift(FFT(windowed))| — the DIF four-step (ops/fourstep.py) for
+    factorable 1-D lengths, the whole-signal XLA FFT otherwise.
 
-    DIF beats DIT in the fused chain (profile2.log: CHAIN_dif128 0.80 ms
-    vs CHAIN_pipeline/dit 0.99 ms at 4M): the DIF stage-1 is a matmul that
-    XLA fuses with the preceding convolution's output, while DIT's stage-1
-    FFT is a custom call nothing fuses into."""
+    In the DIF split the stage-1 DFT is a matmul that XLA can fuse with
+    the preceding convolution's output.  Whether the four-step beats one
+    cuFFT call on a GPU is ROADMAP Speed 5a; chip_smoke.py times both."""
     n = windowed.shape[-1]
     n1, n2 = fourstep.factor(n)
     if windowed.ndim == 1 and n1 >= 64 and n2 % 2 == 0:
-        from . import config
-        if config.default_config().pallas_spectrum_enabled():
-            from .kernels import spectrum_pallas
-            if spectrum_pallas.supported(n1, n2):
-                return spectrum_pallas.dif_spectrum_mag_pallas(windowed, n1)
         return fourstep.dif_spectrum_mag(windowed, n1)
     return jnp.abs(fft_ops.fft_shifted(windowed))
 
@@ -33,16 +27,14 @@ def _shifted_mag(windowed: jnp.ndarray) -> jnp.ndarray:
 @functools.partial(jax.jit, static_argnames=("fft_len",))
 def fir_fft_chain(x: jnp.ndarray, taps: jnp.ndarray, window: jnp.ndarray,
                   fft_len: int = 0):
-    """Config #1+#2 chain: centered FIR, then a windowed, shifted FFT
-    magnitude spectrum.
+    """The flagship chain (BASELINE.md configs #1+#2): centered FIR, then
+    a windowed, shifted FFT magnitude spectrum.
 
-    This is the "north-star" HBM-roofline chain (BASELINE.md).  Measured
-    stage profile at 4M/128 taps on TPU v5e (profile_r2.log): the FIR runs
-    on the MXU Toeplitz path (0.25 ms); the spectrum runs the DIT-dual
-    four-step whose stage-1 FFT consumes the convolution's natural
-    (rows, 128) layout with no relayout, precomputed twiddles, the
-    fftshift folded into the DFT-matrix columns, and the final transpose
-    on f32 magnitudes (ops/fourstep.py).
+    Short kernels (<= 202 taps) take the banded Toeplitz matmul FIR
+    (conv_ops.toeplitz_conv), longer ones the blocked overlap-save
+    pipeline; the spectrum is :func:`_shifted_mag`.  Mirrors
+    convolution.rs:416-450 (FIR) + time_to_freq.rs:158-165 (fft =
+    plain_fft + fft_shift) + magnitude.
     """
     m = taps.shape[-1]
     n = x.shape[-1]
@@ -60,15 +52,8 @@ def fir_fft_chain(x: jnp.ndarray, taps: jnp.ndarray, window: jnp.ndarray,
 def windowed_spectrum(x: jnp.ndarray, window: jnp.ndarray):
     """Config #1: windowed FFT magnitude of a (real or complex) signal.
 
-    A REAL input stays real all the way to the four-step's stage-1 dots:
-    the interleaved-complex cast XLA does NOT cancel (~2 extra HBM
-    passes, probe_chan_planar_entry's lesson), and the spectrum path's
-    ``jnp.imag`` of a real array lowers to a broadcast-0 whose dots the
-    algebraic simplifier removes — the real-signal pruning."""
-    if jnp.iscomplexobj(x):
-        from . import _planar
-        work = x.astype(_planar.complex_dtype_for(x.dtype))
-        return _shifted_mag(work * window.astype(work.dtype))
+    A REAL input stays real all the way to the four-step's stage-1 dot,
+    so no complex cast of the whole signal is materialized."""
     return _shifted_mag(x * window.astype(x.dtype))
 
 
@@ -83,10 +68,7 @@ def modulation_chain_planar(sr: jnp.ndarray, si: jnp.ndarray,
 
     The reference sets the two channels as real/imag of one complex vector
     and interpolates it; the RC taps are real, so the two planes resample
-    independently and the complex vector never needs to exist: on TPU the
-    interleaved complex build alone measured 0.18 ms at 131k symbols
-    (profile_mod4.log) — 5x the cost of the actual resampling (0.036
-    ms/plane on the composed banded-matmul path).  Returns
+    independently and the complex vector never needs to exist.  Returns
     ``(baseband_re, baseband_im)``; the modulated passband output of the
     example is exactly ``baseband_re`` (to_real drops the imag plane).
 
@@ -102,114 +84,3 @@ def modulation_chain_planar(sr: jnp.ndarray, si: jnp.ndarray,
     re = interp_ops.interpolatef(sr, f, factor, delay, conv_len, 1.0)
     im = interp_ops.interpolatef(si, f, factor, delay, conv_len, 1.0)
     return re, im
-
-
-@functools.partial(jax.jit, static_argnames=("n1", "interpret", "fused",
-                                              "transposed", "budget",
-                                              "wide", "factored_tw"))
-def fir_fft_chain_planar(xr: jnp.ndarray, xi: jnp.ndarray,
-                         taps: jnp.ndarray, window: jnp.ndarray,
-                         n1: int = 0, interpret: bool = False,
-                         fused: bool = False, transposed: bool = False,
-                         budget: str = None, wide: bool = False,
-                         factored_tw: bool = True):
-    """All-planar flagship chain: centered real-tap FIR + window + shifted
-    FFT magnitude, with complex data carried as (re, im) f32 planes from
-    entry to exit — interleaved complex64 is never materialized.
-
-    Same math as :func:`fir_fft_chain` with real ``taps``, but TPU-faster:
-    complex64 is interleaved on TPU, so every real()/imag()/complex()
-    boundary costs a relayout pass, and a complex-cast FIR runs 4 real
-    Toeplitz matmuls per shift where the planar form needs 2 (the planes
-    convolve independently against real taps).  The spectrum tail is the
-    Pallas fused row-FFT kernel (kernels/spectrum_pallas.py), which is
-    planar-native.
-
-    Mirrors convolution.rs:416-450 (FIR) + time_to_freq.rs:158-165 (fft =
-    plain_fft + fft_shift) + magnitude.
-
-    ``budget``: per-chain MXU precision budget (VERDICT r2 #1).  None
-    keeps every dot at the library dial (f32-exact "highest", 6-pass);
-    "high" runs the chain's matmuls 3-pass — half the MXU passes for a
-    measured output error of ~1e-5 relative (pinned on-chip by
-    smoke_accuracy_tpu.py).  The LIBRARY default dial is unchanged; this
-    is an explicit opt-in for deployed chains that tolerate 1e-5.
-    """
-    from .kernels import spectrum_pallas
-    from .ops import fourstep
-    from . import config
-
-    n = xr.shape[-1]
-    n1, n2 = fourstep.factor(n, n1)
-    assert spectrum_pallas.supported(n1, n2), (n1, n2)
-    # budget grammar: "high" = every dot 3-pass; "high-xla" / "high-kernel"
-    # restrict it to the XLA-side (FIR + stage-1) / Pallas-kernel dots —
-    # the A/B knobs probe_budget.py uses to attribute the win.
-    if budget not in (None, "high", "high-xla", "high-kernel"):
-        raise ValueError(
-            f"unknown budget {budget!r}: expected None, 'high', "
-            f"'high-xla' or 'high-kernel'")
-    xla_budget = budget.removesuffix("-xla") if budget in (
-        "high", "high-xla") else None
-    kern_budget = budget.removesuffix("-kernel") if budget in (
-        "high", "high-kernel") else None
-    prec = config.matmul_precision() if xla_budget is None else xla_budget
-    # FIR: the two planes convolve independently against the real taps —
-    # two real Toeplitz matmuls per shift (half the complex-cast MXU
-    # work), no relayout.  Separate per-plane calls, NOT a stacked (2, n)
-    # batch: a leading dim of 2 tiles as 2-of-8 sublanes and every touch
-    # of the batched array runs at 25% efficiency (measured 0.62 ms vs
-    # 0.27 for the complex cast at 4M).
-    tf = taps.astype(xr.dtype)
-    wf = window.astype(xr.dtype)
-    Ar = (conv_ops._toeplitz_body(xr, tf, prec) * wf).reshape(n1, n2)
-    Ai = (conv_ops._toeplitz_body(xi, tf, prec) * wf).reshape(n1, n2)
-    if fused:
-        # Stage 1 + twiddle + row FFT + shift + |.| all inside the Pallas
-        # kernel; B never round-trips HBM (spectrum_pallas._fused_kernel).
-        M = spectrum_pallas.fourstep_mag_fused(Ar, Ai, shift=True,
-                                               interpret=interpret,
-                                               transposed=transposed,
-                                               budget=kern_budget,
-                                               permuted=not transposed)
-        if transposed:
-            return M.reshape(-1)
-        return spectrum_pallas.natural_flatten(M, permuted=True)
-    # Stage-1 DFT over rows, explicit plane matmuls — 3-mult (Karatsuba)
-    # complex form with the left constant F: 3 MXU dots instead of 4
-    # (k1 = Fr(Ar+Ai), k2 = (Fi-Fr)Ar, k3 = (Fi+Fr)Ai; B = k1-k3, k1+k2).
-    Frn, Fin, Trn, Tin = fourstep._dif_planes(n1, n2)
-    Fr = jnp.asarray(Frn)
-    Fm = jnp.asarray(Fin - Frn)
-    Fp = jnp.asarray(Fin + Frn)
-    k1 = jnp.matmul(Fr, Ar + Ai, precision=prec)
-    k2 = jnp.matmul(Fm, Ar, precision=prec)
-    k3 = jnp.matmul(Fp, Ai, precision=prec)
-    Br = k1 - k3
-    Bi = k1 + k2
-    # Big twiddle: STREAMED INTO THE KERNEL as planar block inputs
-    # (rowfft_mag Tr/Ti).  Applying it in XLA materializes C and the
-    # custom call re-copies its operands for layout; letting the kernel
-    # read B directly and multiply T itself measured 0.575 -> 0.441
-    # ms/iter at 4M (round-3 A/B; parity exact).  Round 2's opposite
-    # verdict predates the planar/permuted kernel.
-    from .kernels.spectrum_pallas import rowfft_mag
-    if factored_tw and not transposed and not wide:
-        # Round-5: the big twiddle streams FACTORED (A (n1, L2) +
-        # B (n1, 128) instead of the dense (n1, n2) planes): 32 MB ->
-        # 0.4 MB of twiddle HBM per 4M call, rebuilt in-kernel with two
-        # broadcast VPU multiplies (fourstep._dif_twiddle_factored).
-        Tfac = fourstep._dif_twiddle_factored(n1, n2)
-        M = rowfft_mag(Br, Bi, shift=True, interpret=interpret,
-                       Tfac=Tfac, transposed=False,
-                       budget=kern_budget, permuted=True)
-    else:
-        M = rowfft_mag(Br, Bi, shift=True, interpret=interpret,
-                       Tr=jnp.asarray(Trn), Ti=jnp.asarray(Tin),
-                       transposed=transposed, budget=kern_budget,
-                       permuted=not transposed, wide=wide)
-    if transposed:
-        # Kernel wrote (k2s, k1', k1) directly: natural order is flat.
-        return M.reshape(-1)
-    # permuted kernel layout: the reorder folds into this one transpose.
-    return spectrum_pallas.natural_flatten(M, permuted=True)

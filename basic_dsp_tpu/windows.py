@@ -4,7 +4,7 @@ Behavioral parity with reference window_functions.rs:14-183 (formulas and the
 ``window(n, len)`` contract: n ranges over ``0..points`` and windows must match
 the reference's golden five-point tables to 1e-4).  Unlike the reference —
 which evaluates the window per sample inside a thread fan-out with a
-symmetric-pair optimization (threading.rs:552-612) — the TPU build evaluates
+symmetric-pair optimization (threading.rs:552-612) — this library evaluates
 the whole window as one fused vectorized expression; XLA fuses it into the
 consumer (windowed FFT) so the window never round-trips through HBM.
 """

@@ -4,10 +4,10 @@ examples/approx_accuracy.rs.
 The reference compares its SIMD polynomial approximations (`sin_approx`,
 `ln_approx`, ... from simd_extensions/approximations.rs) against the exact
 functions and prints per-sample error rows in plot_csv_data.py format.
-Here the `*_approx` family evaluates through f32 XLA transcendentals (the
-TPU's reduced-precision contract), and the example additionally reports
-the MXU matmul-precision dial (`bd.set_matmul_precision`) on a FIR — the
-TPU-native analog of the same exact-vs-fast trade.
+Here the `*_approx` family evaluates through f32 XLA transcendentals, and
+the example additionally reports the matmul-precision dial
+(`bd.set_matmul_precision`) on a FIR — the same exact-vs-fast trade on
+the matrix units.
 
 Usage: python approx_accuracy.py          # CSV rows to stdout, maxima to stderr
 """
@@ -54,10 +54,11 @@ def main():
     print_diff("Powf2", True, x_vec, lambda v: v.powf(2.0),
                lambda v: v.powf_approx(2.0))
 
-    # The MXU dial: same FIR at every precision tier vs the exact default.
+    # The matmul dial: same FIR at every precision tier vs the exact
+    # default.
     rng = np.random.default_rng(0)
-    # f32 on purpose: the dial only matters for f32 MXU contractions (f64
-    # is software-emulated on TPU and ignores the precision tiers).
+    # f32 on purpose: the dial only matters for f32 contractions (f64
+    # matmuls ignore the precision tiers).
     sig = bd.to_real_time_vec(rng.normal(size=4096).astype(np.float32))
     taps = bd.to_real_time_vec(
         np.sinc(np.linspace(-4, 4, 33)).astype(np.float32))

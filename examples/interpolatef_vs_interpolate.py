@@ -5,7 +5,7 @@ Python and plots; here the native Python API is the surface).
 Three routes to the same 2x upsample of a windowed tone burst:
 
 * ``interpolatef`` — time-domain convolution against an analytic sinc
-  (reference interpolation.rs:387-482; the MXU polyphase fast path),
+  (reference interpolation.rs:387-482; the banded-matmul polyphase path),
 * ``interpolate`` / ``interpft`` — FFT zero-pad resampling
   (interpolation.rs:542-605),
 * ``scipy.signal.resample`` — the numpy-ecosystem baseline.

@@ -2,7 +2,7 @@
 examples/plot_csv_data.py (which plots bench_tables.rs tables).
 
 One line per op: size (log) vs throughput (Msamples/s, log).  Multiple
-CSV files overlay (e.g. a TPU run vs a CPU reference run, the reference
+CSV files overlay (e.g. a GPU run vs a CPU reference run, the reference
 script's STDIN-vs-file use case); the second and later files plot dashed.
 
 Usage: python plot_csv_data.py bench_tables.csv [more.csv ...] [-o out.png]

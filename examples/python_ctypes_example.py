@@ -2,7 +2,7 @@
 
 The analog of the reference's foreign-language interop demo
 (examples/basic_dsp_example.py there: ctypes over the Rust cdylib); here
-the shared library embeds the TPU-backed runtime, so any language with a
+the shared library embeds the JAX runtime, so any language with a
 C FFI drives the same compiled pipelines.
 
 Run: make interop && python examples/python_ctypes_example.py

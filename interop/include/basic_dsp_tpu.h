@@ -1,6 +1,6 @@
 /* C ABI for the basic_dsp_tpu framework.
  *
- * The TPU-native analog of the reference interop crate
+ * The analog of the reference interop crate
  * (basic_dsp_interop facade32.rs/facade64.rs): an opaque vector handle, a
  * {result_code, vector} return struct, and per-precision entry points.
  * Error codes follow reference interop/src/lib.rs:107-141:
@@ -298,7 +298,7 @@ void bdsp_free(void *p);
   /* len counts interleaved float elements (reference set_len32). */           \
   VectorResult set_len##X(DspVec *v, size_t len);                              \
   /* Threading knobs are accepted for API parity and ignored: XLA owns       \
-   * scheduling on TPU (reference new_with_performance_options32,            \
+   * scheduling (reference new_with_performance_options32,                   \
    * facade32.rs:44-100). */                                                   \
   DspVec *new_with_performance_options##X(int32_t is_complex, int32_t domain,  \
                                           REAL init_value, size_t length,      \

@@ -1,6 +1,6 @@
 // C ABI implementation for basic_dsp_tpu.
 //
-// The TPU-native analog of the reference interop crate (basic_dsp_interop,
+// The analog of the reference interop crate (basic_dsp_interop,
 // 157 extern "C" fns per precision in facade32.rs/facade64.rs): this
 // library embeds (or attaches to) a CPython runtime that hosts the JAX/XLA
 // compute path, holds vectors as opaque handles, and forwards every call
@@ -583,7 +583,7 @@ int32_t bdsp_init(void) {
   }
   // The 64-bit facade is genuinely double-precision, like the reference's
   // f64 surface; without x64 jax silently truncates to f32.  Opt out with
-  // BDSP_NO_X64=1 (e.g. for TPU-only deployments).
+  // BDSP_NO_X64=1.
   if (!getenv("BDSP_NO_X64")) {
     code += "import jax\n"
             "try:\n"
@@ -1190,7 +1190,7 @@ const char *bdsp_last_error(void) { return g_last_error.c_str(); }
   DspVec *new_with_performance_options##X(int32_t is_complex, int32_t domain,  \
                                           REAL init_value, size_t length,      \
                                           REAL delta, size_t core_limit) {     \
-    (void)core_limit; /* XLA owns scheduling on TPU */                         \
+    (void)core_limit; /* XLA owns scheduling */                                \
     return new##X(is_complex, domain, init_value, length, delta);              \
   }                                                                            \
   DspVec *new_with_detailed_performance_options##X(                            \

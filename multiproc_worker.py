@@ -1,11 +1,10 @@
-"""Multi-process worker: one simulated HOST of the (host, chip) mesh.
+"""Multi-process worker: one simulated HOST of the (host, device) mesh.
 
 Launched by bench_multihost.py as N separate OS processes, each owning
 ``local_devices`` XLA CPU devices; ``jax.distributed.initialize`` joins
 them into one runtime whose global device list spans every process —
-collectives on the mesh's host axis genuinely cross a process boundary
-(the DCN analog; VERDICT r4 #2 asked for exactly this evidence, beyond
-the single-process virtual meshes the test suite uses).
+collectives on the mesh's host axis genuinely cross a process boundary,
+which the single-process virtual meshes of the test suite cannot show.
 
 Every sharded op's equality check runs against the single-device oracle
 computed locally from the same seeded input.  Worker 0 prints one JSON
@@ -134,9 +133,9 @@ def main():
             "sharded_fir_2proc_ms": round(mp_ms, 3),
             "sharded_fir_1proc_local_ms": round(sp_ms, 3),
             "note": "same global problem size; the 2-proc mesh adds a "
-                    "genuine cross-process (DCN-analog) halo handoff — "
+                    "genuine cross-process halo handoff — "
                     "on shared-core CPU hosts this measures overhead "
-                    "structure, not ICI speedup",
+                    "structure, not a speedup",
         },
     }
     multihost_utils.sync_global_devices("bench_end")

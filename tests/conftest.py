@@ -1,8 +1,10 @@
 """Test configuration.
 
 Tests run on a virtual 8-device CPU mesh so sharded code paths execute
-without TPU hardware (the driver separately validates the multi-chip path,
-and benches run on the real chip).
+without accelerator hardware.  Tests marked ``chip`` need an NVIDIA GPU:
+they skip elsewhere and run on the card with
+
+  BDSP_TEST_PLATFORMS=cuda python -m pytest tests/ -m chip
 
 Note: jax is pre-imported in this environment, so platform selection must go
 through jax.config (env vars are too late).
@@ -33,7 +35,8 @@ os.environ.setdefault(
     os.path.join(os.path.dirname(__file__), "data", "autotune_pinned.json"))
 
 jax.config.update("jax_num_cpu_devices", 8)
-jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_platforms",
+                  os.environ.get("BDSP_TEST_PLATFORMS", "cpu"))
 # f64 flavors are part of the API surface; the default run exercises both
 # precisions.  BDSP_TEST_X64=0 is the f32-only configuration of the matrix.
 X64 = os.environ.get("BDSP_TEST_X64", "1") not in ("", "0", "false")
@@ -45,6 +48,20 @@ def pytest_configure(config):
         "markers",
         "requires_x64: test depends on f64/c128 flavors (skipped when "
         "BDSP_TEST_X64=0)")
+    config.addinivalue_line(
+        "markers",
+        "chip: test needs an NVIDIA GPU (skipped elsewhere; run on the card "
+        "with BDSP_TEST_PLATFORMS=cuda)")
+
+
+@pytest.fixture(autouse=True)
+def _chip_only(request):
+    """Skips ``chip`` tests unless JAX runs on a GPU — decided here, at
+    test time, so every xdist worker collects the same tests."""
+    if request.node.get_closest_marker("chip") is not None \
+            and jax.devices()[0].platform != "gpu":
+        pytest.skip("needs an NVIDIA GPU: run on the card with "
+                    "BDSP_TEST_PLATFORMS=cuda python -m pytest tests/ -m chip")
 
 
 def pytest_collection_modifyitems(config, items):

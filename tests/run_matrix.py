@@ -9,7 +9,7 @@ the same goldens:
   * x64 (f64/c128 flavors) on/off (f32-only runs use the reference's own
     f32 golden tolerance grade — see tests/tools.py)
 
-plus a precision-dial pass (``high`` MXU matmul precision) of the conv and
+plus a precision-dial pass (``high`` matmul precision) of the conv and
 resampling families, proving the dial only changes accuracy, not semantics.
 
 Usage: python tests/run_matrix.py [extra pytest args]

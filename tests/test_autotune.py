@@ -1,4 +1,4 @@
-"""Autotune calibration (VERDICT r1 #6): lazy trigger, measured sweep,
+"""Autotune calibration: lazy trigger, measured sweep,
 per-device-kind persistence, and cache pickup in a fresh process state —
 the analog of the reference's threading.rs:39-193 self-calibration +
 print_calibration (threading.rs:282-289)."""

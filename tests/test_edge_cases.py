@@ -1,5 +1,5 @@
 """Edge-case sweep for the distributed layer and the Gen erroneous
-protocol (VERDICT r1 #10): NaN/tie inputs through sharded_statistics,
+protocol: NaN/tie inputs through sharded_statistics,
 non-divisible meshes raising cleanly, sharded convolution with the kernel
 filling a whole shard, and wrong-flavor Gen vectors marking erroneous across
 every op family — the reference's parameterized_vector_test discipline

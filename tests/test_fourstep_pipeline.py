@@ -1,4 +1,4 @@
-"""Four-step MXU FFT path (ops/fourstep.py): exact agreement with
+"""Four-step matmul FFT path (ops/fourstep.py): exact agreement with
 jnp.fft/numpy across factorizations, shift folding, and the flagship
 chain wiring (pipelines.fir_fft_chain)."""
 import jax.numpy as jnp
@@ -66,3 +66,21 @@ def test_fir_fft_chain_odd_length_fallback():
                                                    jnp.asarray(h), True))
     exp = np.abs(np.fft.fftshift(np.fft.fft(filt * w)))
     assert np.max(np.abs(got - exp)) / exp.max() < scaled_tol(1e-5)
+
+
+def test_modulation_chain_planar_matches_complex_path():
+    """pipelines.modulation_chain_planar == interpolatef on the complex
+    vector, exactly (real taps resample the planes independently;
+    reference examples/modulation.rs:14-41)."""
+    from basic_dsp_tpu.ops import interp_ops
+    from basic_dsp_tpu.conv_types import RaisedCosineFunction
+
+    rng = np.random.default_rng(12)
+    n = 4096
+    sr = jnp.asarray(rng.choice([-0.5, 0.5], n).astype(np.float32))
+    si = jnp.asarray(rng.choice([-0.5, 0.5], n).astype(np.float32))
+    re, im = pipelines.modulation_chain_planar(sr, si)
+    shaped = interp_ops.interpolatef(
+        sr + 1j * si, RaisedCosineFunction(0.35), 10.0, 0.0, 10, 1.0)
+    np.testing.assert_array_equal(np.asarray(re), np.real(shaped))
+    np.testing.assert_array_equal(np.asarray(im), np.imag(shaped))

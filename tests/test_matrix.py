@@ -139,7 +139,7 @@ def test_matrix_toeplitz_path():
 
 
 def test_matrix_batched_reductions_1024_rows():
-    """VERDICT r2 #6: row-wise reductions must be ONE device program, not C
+    """Row-wise reductions must be ONE device program, not C
     Python-loop dispatches — exercised at the advertised 1024-channel scale
     and checked against numpy f64 oracles."""
     rng = np.random.default_rng(7)

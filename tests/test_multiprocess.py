@@ -1,7 +1,7 @@
-"""Multi-process (host, chip) mesh: the sharded ops must agree with the
+"""Multi-process (host, device) mesh: the sharded ops must agree with the
 single-device oracles when the mesh's host axis crosses a REAL process
-boundary (``jax.distributed.initialize`` over 2 OS processes — the DCN
-analog the single-process virtual meshes cannot exercise; VERDICT r4 #2).
+boundary (``jax.distributed.initialize`` over 2 OS processes, which the
+single-process virtual meshes cannot exercise).
 
 The heavy lifting lives in multiproc_worker.py / bench_multihost.py;
 this test launches the 2-process harness at a small size.  The subprocess

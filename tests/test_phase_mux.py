@@ -1,4 +1,4 @@
-"""phase_mux / toeplitz_conv_multi: the MXU interleave-decimate machinery
+"""phase_mux / toeplitz_conv_multi: the matmul interleave-decimate machinery
 behind the interpolatef fast paths (reorg_ops.phase_mux,
 conv_ops.toeplitz_conv_multi)."""
 import numpy as np
@@ -80,7 +80,7 @@ def test_toeplitz_conv_multi_matches_single(n, m, P):
 def test_decimatei_zero_interleave_stay_exact():
     """decimatei / zero_interleave are pure picks and must be BIT-exact —
     they deliberately do NOT use phase_mux (whose one-hot matmuls leave
-    ~3e-7 residue on TPU even at highest precision)."""
+    ~3e-7 residue on an accelerator even at highest precision)."""
     rng = np.random.default_rng(11)
     x = (rng.normal(size=1000) + 1j * rng.normal(size=1000)).astype(np.complex64)
     v = bd.to_complex_time_vec(x)
@@ -116,7 +116,7 @@ def test_fresh_kernel_instances_share_compiled_programs():
 
 def test_matmul_precision_dial_invalidates_programs():
     """config.set_matmul_precision bumps the epoch keyed into _planar's jit
-    cache, so the dial takes effect without stale programs (the TPU-native
+    cache, so the dial takes effect without stale programs (the
     analog of the reference's *_approx fast-math family)."""
     from basic_dsp_tpu import _planar, config
     rng = np.random.default_rng(31)
@@ -136,8 +136,8 @@ def test_matmul_precision_dial_invalidates_programs():
         after = _planar._compiled.cache_info()
         assert after.misses > before.misses, "precision change must retrace"
         # CPU executes every precision tier with full f32 math, so results
-        # stay equal here; the on-chip difference is covered by
-        # smoke_accuracy_tpu.py.
+        # stay equal here; the on-card difference is measured by
+        # chip_smoke.py (phase accuracy).
         np.testing.assert_allclose(relaxed, base, rtol=0, atol=1e-4)
         with pytest.raises(ValueError):
             config.set_matmul_precision("fast")

@@ -11,7 +11,6 @@ import numpy as np
 import pytest
 
 import basic_dsp_tpu as bd
-from basic_dsp_tpu import config
 from basic_dsp_tpu.ops import interp_ops, stats_ops
 
 
@@ -61,16 +60,6 @@ def test_interpolatef_gather_warning():
         interp_ops.interpolatef(np.zeros(256, np.float32), SincFunction(),
                                 float(np.pi) / 2, 0.0, 5, 1.0)
     assert not any("gather path" in str(w.message) for w in rec)
-
-
-def test_f64_warning_only_on_tpu():
-    config._f64_warned[0] = False
-    with warnings.catch_warnings(record=True) as rec:
-        warnings.simplefilter("always")
-        config.warn_if_no_native_f64()
-    import jax
-    on_tpu = jax.devices()[0].platform == "tpu"
-    assert any("no native f64" in str(w.message) for w in rec) == on_tpu
 
 
 def test_prec_reductions_survive_large_magnitudes():
@@ -159,118 +148,3 @@ def test_setitem_int_index_single_program():
     assert gz[3] == 1 + 2j and gz[5] == 4 - 1j
     with pytest.raises(IndexError):
         v[64] = 0.0
-
-
-@pytest.mark.requires_x64
-def test_strict_f64_native_backend_full_grade():
-    """VERDICT r3 #8: under strict_f64 a c128 FFT either computes at true
-    f64 grade or raises.  On a native-f64 backend (CPU) it must MATCH
-    numpy to 1e-12 (reference contract vector_types/mod.rs:121-123)."""
-    import dataclasses
-
-    cfg0 = config.default_config()
-    config.set_default_config(dataclasses.replace(cfg0, strict_f64=True))
-    try:
-        rng = np.random.default_rng(3)
-        z = (rng.normal(size=256) + 1j * rng.normal(size=256))
-        v = bd.to_complex_time_vec(z.astype(np.complex128))
-        got = v.plain_fft().to_numpy()
-        want = np.fft.fft(z)
-        assert got.dtype == np.complex128
-        np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-9)
-    finally:
-        config.set_default_config(cfg0)
-
-
-@pytest.mark.requires_x64
-def test_strict_f64_raises_on_degrading_backend(monkeypatch):
-    """On a no-f64 backend the same op must raise loudly, never silently
-    compute f32-grade (simulated by forcing the native-f64 probe)."""
-    import dataclasses
-
-    from basic_dsp_tpu import _planar
-
-    monkeypatch.setattr(_planar, "_native_f64", False)
-    cfg0 = config.default_config()
-    config.set_default_config(dataclasses.replace(cfg0, strict_f64=True))
-    try:
-        with pytest.raises(FloatingPointError, match="strict_f64"):
-            _planar.complex_dtype_for(np.float64)
-        with pytest.raises(FloatingPointError, match="strict_f64"):
-            bd.to_complex_time_vec(np.zeros(64, np.complex128))
-    finally:
-        config.set_default_config(cfg0)
-    # the DEFAULT config keeps the f64 contract via host routing
-    # (VERDICT r4 #7: strict_f64="host" is the default) ...
-    assert config.DspConfig().strict_f64 == "host"
-    assert _planar.complex_dtype_for(np.float64) == jnp.dtype(np.complex128)
-    # ... and the opt-in fast mode degrades with the cap
-    config.set_default_config(dataclasses.replace(cfg0, strict_f64=False))
-    try:
-        assert _planar.complex_dtype_for(np.float64) == jnp.dtype(
-            np.complex64)
-    finally:
-        config.set_default_config(cfg0)
-
-
-@pytest.mark.requires_x64
-def test_strict_f64_host_mode_keeps_f64_grade(monkeypatch):
-    """strict_f64="host" on a no-f64 backend: f64 flavors keep their
-    dtype and compute on the host CPU backend at true f64 grade
-    (reference contract vector_types/mod.rs:121-123), instead of raising
-    (True) or capping to f32 grade (False)."""
-    import dataclasses
-
-    import jax
-
-    from basic_dsp_tpu import _planar
-
-    monkeypatch.setattr(_planar, "_native_f64", False)
-    cfg0 = config.default_config()
-    config.set_default_config(dataclasses.replace(cfg0, strict_f64="host"))
-    try:
-        assert _planar.complex_dtype_for(np.float64) == jnp.dtype(
-            np.complex128)
-        rng = np.random.default_rng(7)
-        data = (rng.normal(size=256) + 1j * rng.normal(size=256))
-        v = bd.to_complex_time_vec(data)
-        out = v.plain_fft().to_numpy()
-        ref = np.fft.fft(data)
-        assert out.dtype == np.complex128
-        np.testing.assert_allclose(out, ref, rtol=0, atol=1e-9 *
-                                   np.max(np.abs(ref)))
-        # the program ran on (and its result lives on) the CPU backend
-        dev = list(v._data.re.devices() if _planar.is_planar(v._data)
-                   else v._data.devices())[0]
-        assert dev.platform == "cpu"
-        # f64 REAL flavors stay f64 on the host too
-        r = bd.to_real_time_vec(np.linspace(0, 1, 128))
-        assert r.to_numpy().dtype == np.float64
-        np.testing.assert_allclose(r.scale(3.0).to_numpy(),
-                                   np.linspace(0, 1, 128) * 3.0,
-                                   rtol=1e-15)
-    finally:
-        config.set_default_config(cfg0)
-
-
-@pytest.mark.requires_x64
-def test_host_routing_ignores_weak_scalars():
-    """Round-4 advisor (medium): a Python complex scalar operand becomes
-    weak-typed f64 planes under x64 — it must NOT flag an all-f32 chain
-    as f64-family (which would silently route it to the host CPU and
-    keep pulling downstream f32 ops there)."""
-    import jax.numpy as jnp
-
-    from basic_dsp_tpu import _planar
-
-    scal = _planar.PlanarComplex(jnp.asarray((1 + 2j).real),
-                                 jnp.asarray((1 + 2j).imag))
-    f32 = jnp.zeros(8, jnp.float32)
-    assert not _planar._wants_host((f32, scal))
-    # weak 0-d real scalar: same rule
-    assert not _planar._wants_host((f32, jnp.asarray(3.0)))
-    # a genuine f64 ARRAY operand still routes
-    f64 = jnp.zeros(8, jnp.float64)
-    assert _planar._wants_host((f32, f64))
-    planar64 = _planar.PlanarComplex(f64, f64)
-    assert _planar._wants_host((planar64,))

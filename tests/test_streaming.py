@@ -1,5 +1,5 @@
 """Streaming FIR: chunked processing equals the whole-buffer linear
-convolution; chains are differentiable (TPU-native bonus beyond the
+convolution; chains are differentiable (a bonus beyond the
 reference)."""
 import jax
 import pytest

@@ -62,3 +62,26 @@ def multitone(seed, points, tones=4, dtype=None):
         amp = rng.uniform(0.1, 1.0)
         out += (amp * np.sin(2 * np.pi * freq * t + phase)).astype(dtype)
     return out
+
+
+def interpolatef_oracle(x, fun, factor, delay, conv_len, delta=1.0):
+    """The reference's scalar interpolatef loop (interpolation.rs:92-131,
+    387-482), one output and one tap at a time in float64 — the loop
+    version of ``basic_dsp_tpu.reference.interpolatef``."""
+    n = len(x)
+    delay = delay / delta
+    L = min(conv_len, n // 2)
+    is_c = np.iscomplexobj(x)
+    new_len = int(round(n * (2 if is_c else 1) * factor))
+    new_len += new_len % 2
+    pts = new_len // 2 if is_c else new_len
+    out = np.zeros(pts, dtype=np.complex128 if is_c else np.float64)
+    for i in range(pts):
+        center = i / factor
+        r = np.floor(center)
+        acc = 0.0
+        for t in range(2 * L + 1):
+            w = fun(t - L - (center - r) + delay)
+            acc += x[int(r - L + t) % n] * w
+        out[i] = acc
+    return out
